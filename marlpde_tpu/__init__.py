@@ -1,7 +1,7 @@
-"""marlpde_tpu: TPU-native framework for RL-based subgrid-scale closure modeling of 1D PDEs.
+"""marlpde_tpu: JAX framework for RL-based subgrid-scale closure modeling of 1D PDEs.
 
-A from-scratch JAX/XLA re-design of the capabilities of wadaniel/marlpde
-(reference mounted at /root/reference): vectorized PDE environment engine
+A from-scratch JAX/XLA re-design of the capabilities of wadaniel/marlpde:
+vectorized PDE environment engine
 (diffusion, advection, viscous/stochastic Burgers, Kuramoto-Sivashinsky; FD and
 pseudo-spectral variants; ABCN / RK3 / ETDRK4 integrators), per-gridpoint
 multi-agent closure-correction interface, and a JAX-native VRACER learner

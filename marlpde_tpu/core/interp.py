@@ -5,7 +5,7 @@ Burgers/KS (Burger.py:323, KS.py:223), linear for diffusion/advection
 (Diffusion.py:132).  Queries always land on stored time slices (t = n*dt), so
 time interpolation reduces to an index; only space needs real interpolation.
 
-TPU-native replacement: a *periodic* cubic spline on the uniform grid, whose
+On-device replacement: a *periodic* cubic spline on the uniform grid, whose
 circulant tridiagonal system (M_{j-1} + 4 M_j + M_{j+1} = 6 d2y_j) is solved in
 Fourier space — one FFT per trajectory frame, batched.  This differs from
 scipy's non-periodic B-spline only near the domain edges (the periodic variant
@@ -62,10 +62,7 @@ def periodic_spline_eval_uniform(y, M, offset, L, Q):
     a SINGLE fractional part t = frac(offset/h) shared by every query — so the
     four per-query gathers of the general path collapse to one contiguous
     dynamic-slice of the (periodically doubled) frame plus static strided
-    slices.  On TPU this is the difference between an XLA gather and a sliced
-    copy: the burger-fd bench's per-substep MSE reward ran 124x faster with
-    the gathers knocked out (runs/tpu_fd_profile.log: 94.1k -> 11.6M
-    substeps/s), and this path recovers that without changing semantics —
+    slices: an XLA gather becomes a sliced copy, without changing semantics —
     identical j/t algebra, tested bitwise-close against the general path.
 
     y, M: (..., N) frame values/spline coefficients.  offset: SCALAR grid

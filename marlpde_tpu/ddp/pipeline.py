@@ -15,7 +15,7 @@ Parity targets (reference ddp/):
   * Transfer_Learning.py: freeze trunk, retrain head at a new Re      (:93-102)
 
 Everything runs on-device: the DNS generator is a lax.scan, training uses
-flax/optax, the a-posteriori LES embeds the MLP in the scan body (no
+optax, the a-posteriori LES embeds the MLP in the scan body (no
 model.predict host round-trips).
 """
 
@@ -24,13 +24,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
 from marlpde_tpu.core import spectral
+from marlpde_tpu.rl import networks
 
 
 # --------------------------------------------------------------- data generation
@@ -131,19 +131,32 @@ def shift_augment(key, a, b):
 
 # ------------------------------------------------------------------- ANN model
 
-class ClosureNet(nn.Module):
-    """n_bar -> 250 x n_hidden (swish) -> n_bar (ddp_train_and_test.py:66-74)."""
+@dataclasses.dataclass(frozen=True)
+class ClosureNet:
+    """n_bar -> 250 x n_hidden (swish) -> n_bar (ddp_train_and_test.py:66-74).
+
+    Parameters follow networks.VracerNet's Dense_i layout: Dense_0 is the
+    128-wide input layer, Dense_1..Dense_{n_hidden} the hidden layers and
+    Dense_{n_hidden+1} the linear head."""
 
     n_out: int = 128
     width: int = 250
     n_hidden: int = 6
 
-    @nn.compact
-    def __call__(self, x):
-        h = nn.swish(nn.Dense(128)(x))
-        for _ in range(self.n_hidden):
-            h = nn.swish(nn.Dense(self.width)(h))
-        return nn.Dense(self.n_out)(h)
+    def init(self, key, x):
+        sizes = ([x.shape[-1], 128] + [self.width] * self.n_hidden
+                 + [self.n_out])
+        keys = jax.random.split(key, len(sizes) - 1)
+        return {"params": {
+            f"Dense_{i}": networks.dense_init(keys[i], sizes[i], sizes[i + 1])
+            for i in range(len(sizes) - 1)}}
+
+    def apply(self, params, x):
+        p = params["params"]
+        h = x
+        for i in range(self.n_hidden + 1):
+            h = jax.nn.swish(networks.dense(p[f"Dense_{i}"], h))
+        return networks.dense(p[f"Dense_{self.n_hidden + 1}"], h)
 
 
 @dataclasses.dataclass

@@ -13,11 +13,11 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core import ic
 from marlpde_tpu.envs import features
 from marlpde_tpu.solvers import advection
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 # advection_environment_simple.py:31-35
 BONUS = {128: 5e-2, 64: 5e-2, 32: 5e-2, 16: 1e-1, 8: 1e-1}
@@ -54,7 +54,7 @@ class AdvectionEnvConfig:
         return 2 * self.N // self.num_agents
 
 
-class AdvectionEnvState(struct.PyTreeNode):
+class AdvectionEnvState(PyTreeNode):
     solver: advection.AdvectionState
     macro_step: jax.Array
     done: jax.Array

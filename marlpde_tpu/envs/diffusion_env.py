@@ -22,11 +22,11 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core import ic
 from marlpde_tpu.envs import features
 from marlpde_tpu.solvers import diffusion
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 # survival bonus per grid size (diffusion_environment_simple.py:32-40)
 SIMPLE_BONUS = {128: 5e-4, 64: 5e-5, 32: 5e-5, 16: 5e-5, 8: 5e-5, 4: 5e-5, 2: 5e-5, 1: 5e-5}
@@ -79,7 +79,7 @@ class DiffusionEnvConfig:
         return self.N // self.num_agents  # per-point center weights
 
 
-class DiffusionEnvState(struct.PyTreeNode):
+class DiffusionEnvState(PyTreeNode):
     solver: diffusion.DiffusionState
     macro_step: jax.Array
     done: jax.Array

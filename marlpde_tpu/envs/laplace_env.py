@@ -13,10 +13,10 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core import ic
 from marlpde_tpu.solvers import laplace
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -42,7 +42,7 @@ class LaplaceEnvConfig:
         return 3
 
 
-class LaplaceEnvState(struct.PyTreeNode):
+class LaplaceEnvState(PyTreeNode):
     solver: laplace.LaplaceState
     macro_step: jax.Array
     done: jax.Array

@@ -45,10 +45,11 @@ def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
                     **overrides) -> Env:
     """``fast`` selects the rollout backend for qualifying configs
     (fast_burger_ok): 'auto' attaches the whole-batch jnp path, 'pallas' the
-    fused VMEM-resident kernel (TPU), 'off' keeps the general vmapped env.
-    Training (envs/rollout.py + train/trainer.py) then runs at the benched
-    whole-batch speed; parity with the general env is tested in
-    tests/test_pallas.py::TestFastEnvParity."""
+    fused Pallas macro-step kernel (ops/abcn_pallas.py, Triton route; GPU
+    only) and raises for a config the fast path does not implement, 'off'
+    keeps the general vmapped env.  Training (envs/rollout.py +
+    train/trainer.py) then runs at the benched whole-batch speed; parity with
+    the general env is tested in tests/test_pallas.py::TestFastEnvParity."""
     if cfg is None:
         cfg = burger_env.BurgerEnvConfig(**overrides)
     elif overrides:
@@ -58,6 +59,9 @@ def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
     name = "burger-fd" if cfg.scheme == "fd" else (
         "burger-marl" if cfg.num_agents > 1 else "burger")
     batch_reset = batch_step = None
+    if fast == "pallas" and not fast_burger_ok(cfg):
+        raise ValueError("[registry] fast='pallas' needs a config the "
+                         "whole-batch fast path implements (fast_burger_ok)")
     if fast != "off" and fast_burger_ok(cfg):
         from marlpde_tpu.envs import burger_fast
         batch_reset = partial(burger_fast.reset, cfg)

@@ -1,11 +1,11 @@
 """Device-mesh distribution: env shards + data-parallel learner.
 
 The reference has no distributed execution at all (SURVEY.md §2.8: single
-SLURM task, OMP threads inside korali).  The TPU-native scaling axis is the
+SLURM task, OMP threads inside korali).  The scaling axis here is the
 *environment batch*: thousands of envs advance in lockstep, sharded over a 1-D
 'env' mesh axis; the learner is data-parallel with psum gradient reduction
 inside shard_map.  Multi-host runs extend the same mesh over
-jax.distributed-initialized processes; collectives ride ICI within a slice.
+jax.distributed-initialized processes; collectives are XLA's (NCCL on GPUs).
 
 One generation = one XLA computation per device:
   collect episodes (policy-in-scan) -> insert into the local replay shard ->
@@ -34,17 +34,15 @@ from marlpde_tpu.rl import vracer
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None):
-    """Multi-host init (idempotent).  On TPU pods jax.distributed discovers
-    topology from the environment; explicit args support manual SLURM-style
-    launches (scripts/submit_jobs.py --tpu-pod).  Safe no-op single-host."""
+    """Multi-host init (idempotent).  Under SLURM jax.distributed discovers
+    the cluster itself (scripts/submit_jobs.py --multi-node); explicit args
+    support manual launches.  Safe no-op single-host."""
     try:
         if coordinator is not None:
             jax.distributed.initialize(coordinator_address=coordinator,
                                        num_processes=num_processes,
                                        process_id=process_id)
-        elif any(k in __import__("os").environ for k in
-                 ("COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-                  "SLURM_JOB_NUM_NODES")):
+        elif "SLURM_JOB_NUM_NODES" in __import__("os").environ:
             jax.distributed.initialize()
     except RuntimeError:
         pass  # already initialized
@@ -230,7 +228,7 @@ def run_generations(env: Env, rl_cfg, mesh: Mesh, envs_per_device: int,
                     testing_frequency: int = 0, testing_episodes: int = 8,
                     checkpoint_dir: Optional[str] = None,
                     checkpoint_every: int = 25, init_key=None):
-    """Convenience driver used by the multichip dry-run and the TPU trainer.
+    """Convenience driver used by the multi-device dry-run and `run.py --mesh`.
 
     Returns (ts, rep_shards, history) where history carries per-generation
     gen/experiences/mean_return/mean_ep_len (the trainer-history subset rlview

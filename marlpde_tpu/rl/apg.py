@@ -3,7 +3,7 @@
 Upgrade target: the reference's gradient-aware RL (korali safe-rl branch)
 consumes per-step action Jacobians published as ``s["State Gradient"]``
 (burger_jax_environment.py:50,94) that Burger_jax accumulates host-side with
-an explicit chain rule (Burger_jax.py:334-374).  On TPU the whole rollout is
+an explicit chain rule (Burger_jax.py:334-374).  Here the whole rollout is
 one differentiable XLA program, so instead of shipping Jacobians to a host
 learner we differentiate the return directly:
 

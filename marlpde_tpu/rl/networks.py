@@ -6,11 +6,19 @@ with a single network for value + policy (that is what makes it V-RACER).
 
 sigma is parameterized as softplus(raw) scaled so that raw=0 gives the
 driver's "Initial Exploration Noise" (run-vracer-burger.py:158).
+
+The MLPs are plain JAX.  Parameters are the nested dict
+``{"params": {"Dense_i": {"kernel": (in, out), "bias": (out,)}}}`` with the
+layers numbered in order of application, and kernels are drawn LeCun-normal
+(truncated) with zero biases — the layout and initial distributions of a
+``flax.linen.Dense`` stack, so parameter trees saved from one load into the
+other.
 """
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +47,20 @@ def leaky_sigma_cap(sigma, sigma_max, leak: float = SIGMA_CAP_LEAK):
     return leaky + jax.lax.stop_gradient(hard - leaky)
 
 
-class VracerNet(nn.Module):
+def dense_init(key, fan_in: int, fan_out: int, dtype=jnp.float32,
+               zero_kernel: bool = False):
+    """One Dense layer: LeCun-normal (truncated) kernel, zero bias."""
+    kernel = (jnp.zeros((fan_in, fan_out), dtype) if zero_kernel else
+              jax.nn.initializers.lecun_normal()(key, (fan_in, fan_out), dtype))
+    return {"kernel": kernel, "bias": jnp.zeros((fan_out,), dtype)}
+
+
+def dense(layer, x):
+    return x @ layer["kernel"] + layer["bias"]
+
+
+@dataclasses.dataclass(frozen=True)
+class VracerNet:
     act_dim: int
     width: int = 128
     n_hidden: int = 2
@@ -70,23 +91,39 @@ class VracerNet(nn.Module):
     # loses nothing.  inf = korali-faithful unbounded (default).
     sigma_max: float = np.inf
 
-    @nn.compact
-    def __call__(self, obs):
+    def init(self, key, obs):
+        """Parameters for observations shaped like ``obs`` (..., obs_dim).
+
+        Layer order is fixed across mu_param modes (Dense_{n_hidden} = value,
+        Dense_{n_hidden+1} = mean head, Dense_{n_hidden+2} = sigma head), so
+        checkpoints can never silently cross-load swapped heads."""
+        n = self.n_hidden
+        sizes = [obs.shape[-1]] + [self.width] * n
+        heads = {"value": (n, 1), "mu": (n + 1, self.act_dim),
+                 "sigma": (n + 2, self.act_dim)}
+        keys = jax.random.split(key, n + 3)
+        p = {f"Dense_{i}": dense_init(keys[i], sizes[i], self.width)
+             for i in range(n)}
+        for name, (i, out) in heads.items():
+            zero = name == "sigma" or (name == "mu"
+                                       and self.mu_param == "sigma_relative")
+            p[f"Dense_{i}"] = dense_init(keys[i], self.width, out,
+                                         zero_kernel=zero)
+        return {"params": p}
+
+    def apply(self, params, obs):
+        """obs (..., obs_dim) -> (V (...,), mu (..., A), sigma (..., A))."""
+        p = params["params"]
+        n = self.n_hidden
         h = obs
-        for _ in range(self.n_hidden):
-            h = nn.tanh(nn.Dense(self.width)(h))
-        v = nn.Dense(1)(h)[..., 0]
-        # NB: module creation order fixes flax param names (Dense_3 = mean
-        # head, Dense_4 = sigma head) — keep it stable across mu_param modes
-        # so checkpoints can never silently cross-load swapped heads.
-        if self.mu_param == "sigma_relative":
-            mu_head = nn.Dense(self.act_dim, kernel_init=nn.initializers.zeros)
-        else:
-            mu_head = nn.Dense(self.act_dim)
-        mu = mu_head(h)
-        raw = nn.Dense(self.act_dim, kernel_init=nn.initializers.zeros)(h)
+        for i in range(n):
+            h = jnp.tanh(dense(p[f"Dense_{i}"], h))
+        v = dense(p[f"Dense_{n}"], h)[..., 0]
+        mu = dense(p[f"Dense_{n + 1}"], h)
+        raw = dense(p[f"Dense_{n + 2}"], h)
         # softplus(0) = log 2, so raw=0 yields sigma = init_noise exactly
-        sigma = nn.softplus(raw) * (self.init_noise / float(np.log(2.0))) + self.sigma_floor
+        sigma = (jax.nn.softplus(raw) * (self.init_noise / float(np.log(2.0)))
+                 + self.sigma_floor)
         if np.isfinite(self.sigma_max):
             # leaky ceiling: exact identity below the cap (a tanh cap would
             # distort sigma everywhere — iex=3 under cap 5 would start at

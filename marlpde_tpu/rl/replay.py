@@ -1,7 +1,7 @@
 """On-device episode replay buffer (REFER storage layer).
 
 korali's replay (run-vracer-burger.py:166-167) holds 20k-100k *experiences*;
-V-RACER's value targets are computed along stored episodes, so the TPU-native
+V-RACER's value targets are computed along stored episodes, so the on-device
 layout stores whole fixed-length episodes:
 
   obs      (C, T, na, obs_dim)
@@ -29,10 +29,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
-class Replay(struct.PyTreeNode):
+class Replay(PyTreeNode):
     obs: jax.Array
     actions: jax.Array
     mu: jax.Array

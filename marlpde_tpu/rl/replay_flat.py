@@ -47,10 +47,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
-class FlatReplay(struct.PyTreeNode):
+class FlatReplay(PyTreeNode):
     # experience ring (capacity E)
     obs: jax.Array        # (E, na, obs_dim)
     actions: jax.Array    # (E, na, act_dim)
@@ -192,7 +193,11 @@ def add_episodes(rep: FlatReplay, batch: dict, sv, vtg, boot) -> FlatReplay:
     offs = jnp.cumsum(lengths) - lengths                        # exclusive
     # global experience id of each (b, t) row; rows are packed per episode
     g_row = rep.cursor + offs[:, None] + jnp.cumsum(valid, axis=1) - 1
-    slot = jnp.where(valid, g_row % E, E).reshape(-1)           # E = dropped
+    # an insert larger than the ring keeps only its newest E rows: two rows
+    # of one scatter must never share a slot (which duplicate wins is
+    # unspecified on the GPU, and could differ between the buffers)
+    keep = valid & (g_row >= rep.cursor + lengths.sum() - E)
+    slot = jnp.where(keep, g_row % E, E).reshape(-1)            # E = dropped
 
     ep_gid = rep.n_episodes + jnp.arange(B, dtype=jnp.int32)    # (B,)
     first_g = rep.cursor + offs
@@ -296,8 +301,8 @@ def refresh_retrace(rep: FlatReplay, g, T_window: int, gamma, scale,
     # The recursion vt_k = sv_k + rb_k*(r_k + gamma*vt_{k-1} - sv_k) is the
     # affine map vt_k = a_k*vt_{k-1} + b_k (invalid window slots pass the
     # carry through: a=1, b=0), so the whole window resolves as a log-depth
-    # prefix composition instead of a T-step sequential scan — the scan was
-    # the per-update latency hot spot on TPU (500 tiny sequential steps).
+    # prefix composition instead of a T-step sequential scan of 500 tiny
+    # dependent steps, which bounded each update's latency.
     val = valid[:, :, None]
     a = jnp.where(val, gamma * rho_bar, 1.0)                    # (n, Tw, na)
     b = jnp.where(val, sv_w * (1.0 - rho_bar) + rho_bar * r_w, 0.0)

@@ -5,10 +5,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
-class RunningStats(struct.PyTreeNode):
+class RunningStats(PyTreeNode):
     mean: jax.Array
     m2: jax.Array
     count: jax.Array

@@ -25,7 +25,7 @@ and state-rescaling coefficients frozen once updates begin.
 
 Deviations from korali (each deliberate, documented at its definition):
   * ``minibatch_mode="episode"``: whole-episode minibatches with exact
-    V-trace tails under the current network — the TPU-native alternative.
+    V-trace tails under the current network.
   * ``trust_region="jeffreys"`` (default): symmetrized far-policy KL — the
     paper's forward KL is log-cheap for sigma growth and quadratic for
     shrinkage, so exploration noise ratchets up unboundedly (measured,
@@ -50,10 +50,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
 from marlpde_tpu.rl import distributions as D
 from marlpde_tpu.rl import networks, running_stats
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -110,12 +110,6 @@ class VracerConfig:
     # korali's unbounded sigma; a finite cap (e.g. the action range) prevents
     # the late-training sigma runaway observed on long spectral-reward runs.
     sigma_max: float = np.inf
-    # Acting-path policy forward: 'xla' (flax apply) or 'pallas' (the fused
-    # VMEM-resident MLP kernel, ops/mlp_pallas.py — requires n_hidden=2).
-    # Only act/act_deterministic/policy_apply dispatch on this; the loss
-    # functions always differentiate the flax apply.  Parity is tested in
-    # tests/test_pallas.py::TestPolicyImplParity.
-    policy_impl: str = "xla"               # 'xla' | 'pallas'
     # Far-policy trust-region divergence: 'jeffreys' (symmetrized KL; see
     # distributions.kl_jeffreys for the sigma-ratchet rationale) or 'forward'
     # (the ReF-ER paper's KL(behavior||current)).
@@ -192,7 +186,7 @@ class VracerConfig:
         return max(self.replay_max_experiences // 4, 1024)
 
 
-class TrainState(struct.PyTreeNode):
+class TrainState(PyTreeNode):
     params: Any
     opt_state: Any
     beta: jax.Array
@@ -249,18 +243,7 @@ def _prep_obs(cfg: VracerConfig, ts: TrainState, obs):
 
 def policy_apply(cfg: VracerConfig, ts: TrainState, obs):
     """obs (..., obs_dim) -> (V, mu, sigma)."""
-    x = _prep_obs(cfg, ts, obs)
-    if cfg.policy_impl == "pallas":
-        assert cfg.n_hidden == 2, "mlp_pallas kernel is specialized to n_hidden=2"
-        from marlpde_tpu.ops import mlp_pallas
-        lead = obs.shape[:-1]
-        V, mu, sigma = mlp_pallas.mlp_forward(
-            x.reshape(-1, cfg.obs_dim), ts.params, init_noise=cfg.init_noise)
-        if np.isfinite(cfg.sigma_max):
-            sigma = networks.leaky_sigma_cap(sigma, cfg.sigma_max)
-        return (V.reshape(lead), mu.reshape(lead + (cfg.act_dim,)),
-                sigma.reshape(lead + (cfg.act_dim,)))
-    return make_net(cfg).apply(ts.params, x)
+    return make_net(cfg).apply(ts.params, _prep_obs(cfg, ts, obs))
 
 
 def act(cfg: VracerConfig, ts: TrainState, obs, key):
@@ -508,6 +491,13 @@ def _trust_kl(cfg: VracerConfig, mu_b, sigma_b, mu, sigma):
     return D.kl_normal(mu_b, sigma_b, mu, sigma)
 
 
+# Episodes per chunk of the insert-time value forward (flat_insert): a whole
+# generation at once needs B*T*na rows of hidden activations — 1024 flagship
+# episodes x 500 steps x 32 agents x width 256 is 16 GiB per hidden layer,
+# and that generation ran out of an 80 GB GPU's memory.
+VALUE_CHUNK_EPISODES = 64
+
+
 def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch, axis=None):
     """korali processEpisode: when an episode enters the replay, compute its
     state values V(s), its on-policy (rho=1) retrace values in current
@@ -520,7 +510,9 @@ def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch, axis=None):
     device computes retrace values with the GLOBAL scale.
     """
     from marlpde_tpu.rl import replay_flat
-    V, _, _ = make_net(cfg).apply(ts.params, _prep_obs(cfg, ts, batch["obs"]))
+    V = jax.lax.map(
+        lambda o: make_net(cfg).apply(ts.params, _prep_obs(cfg, ts, o))[0],
+        batch["obs"], batch_size=VALUE_CHUNK_EPISODES)
     if not cfg.reward_rescaling:
         scale = jnp.asarray(1.0, V.dtype)
     elif cfg.reward_scale_source == "cumulative":

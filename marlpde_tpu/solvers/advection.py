@@ -18,9 +18,9 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core.grids import Grid
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -39,7 +39,7 @@ class AdvectionConfig:
         return self.nu * self.dt / self.grid.dx
 
 
-class AdvectionState(struct.PyTreeNode):
+class AdvectionState(PyTreeNode):
     u: jax.Array
     t: jax.Array
     ioutnum: jax.Array

@@ -27,11 +27,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core import spectral
 from marlpde_tpu.core.grids import Grid
 from marlpde_tpu.solvers import closures
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -59,10 +59,9 @@ class BurgerConfig:
     # where the symbol IS used).  Here the override is functional: the ABCN
     # Crank-Nicolson factor becomes C = 0.5*dt*l with the complex symbol.
     coeffs: Optional[tuple] = None
-    fft_impl: str = "fft"       # 'fft' | 'dft': DFT-as-matmul rides the MXU and
-                                # wins for the batched tiny transforms (N <= ~256)
-                                # the LES envs run; numerically identical to fp
-                                # roundoff (tested)
+    fft_impl: str = "fft"       # 'fft' | 'dft': DFT as full-float32 real
+                                # matmuls (ops/dft.py); numerically identical
+                                # to fp roundoff (tested)
 
     def _fft(self, u):
         return (spectral.fft_mm if self.fft_impl == "dft" else spectral.fft)(u)
@@ -81,7 +80,7 @@ class BurgerConfig:
         return Grid(self.N, self.L)
 
 
-class BurgerState(struct.PyTreeNode):
+class BurgerState(PyTreeNode):
     u: jax.Array                 # (..., N) physical field
     v: jax.Array                 # (..., N) complex spectrum
     fn_old: jax.Array            # (..., N) complex, ABCN nonlinear-term memory

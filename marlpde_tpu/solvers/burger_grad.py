@@ -76,7 +76,7 @@ def step_with_grad(cfg: burger.BurgerConfig, basis, u, v, grad, actions,
 def episode_jacobian(cfg: burger.BurgerConfig, basis, u0, actions_seq,
                      n_intermediate: int):
     """Full-episode action Jacobians via one jacfwd over the rollout — the
-    TPU-native generalization (no per-step host accumulation)."""
+    on-device generalization (no per-step host accumulation)."""
     B = jnp.asarray(basis, u0.dtype)
 
     def roll(acts):

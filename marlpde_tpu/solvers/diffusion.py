@@ -21,9 +21,9 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core.grids import Grid
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -44,7 +44,7 @@ class DiffusionConfig:
         return (not self.implicit) and 2.0 * self.nu * self.dt >= self.grid.dx**2
 
 
-class DiffusionState(struct.PyTreeNode):
+class DiffusionState(PyTreeNode):
     u: jax.Array
     t: jax.Array
     ioutnum: jax.Array

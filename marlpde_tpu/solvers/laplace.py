@@ -14,9 +14,9 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from marlpde_tpu.core.grids import Grid
+from marlpde_tpu.utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -35,7 +35,7 @@ class LaplaceConfig:
         return Grid(self.N, self.L)
 
 
-class LaplaceState(struct.PyTreeNode):
+class LaplaceState(PyTreeNode):
     u: jax.Array        # (..., N)
     force: jax.Array    # (..., N)
     t: jax.Array

@@ -14,7 +14,7 @@ acceptance workload) and emits into results/learning_r3/:
     quantitative learned-RL result in the reference repo) and the exact-FD
     baseline re-simulated per plotErrors.py:40-48.
 
-Usage:  env PYTHONPATH= python scripts/assemble_learning_study.py \
+Usage:  python scripts/assemble_learning_study.py \
             --runs 961:N128-experience 962:N8-experience 964:N128-marl128 \
             --out results/learning_r3
 """

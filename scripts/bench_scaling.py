@@ -5,7 +5,7 @@ Runs the sharded generation (env shards + DP learner, parallel/mesh.py) on
 1, 2, ..., N devices and reports throughput scaling efficiency —
 the BASELINE.md ">=80% scaling at 1 chip / 1 host / N hosts" harness.
 
-On a TPU pod this measures real ICI scaling; on CPU it validates the
+On several GPUs this measures real scaling; on CPU it validates the
 mechanism with a virtual mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

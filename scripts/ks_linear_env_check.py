@@ -4,7 +4,7 @@ ks_linear_probe.py found per-mode gains whose macro-held forcing beats the
 uncontrolled baseline in the standalone fp64 rollout.  This script replays
 that policy through marlpde_tpu.envs.ks_env itself (reset/step, the exact
 reward code the RL runs use) to confirm conventions and robustness before a
-TPU run: actions_t = irfft(gains * rfft(u_t)) — a deterministic linear
+device run: actions_t = irfft(gains * rfft(u_t)) — a deterministic linear
 state-feedback inside the VRACER policy class (see ks_linear_probe docstring).
 
 Run on CPU (fp64 and fp32 variants).  Prints controlled vs uncontrolled

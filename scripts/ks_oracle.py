@@ -30,7 +30,7 @@ Also reported: rms/max amplitude of Pi vs the exploration scales probed
 "corrections at the reference's exploration scale cannot reach the
 subgrid-term amplitude".
 
-CPU float64 throughout (no TPU, no jax device work).  Writes
+CPU float64 throughout (no jax device work).  Writes
 results/ks_oracle_r5.json and prints a summary table.
 """
 

@@ -6,7 +6,7 @@ parity on diffusion-simple* rather than bitwise equality.  This study runs the
 reference driver configuration (run-vracer-diffusion-simple.py:5-21,76-79:
 N=128, 1 agent, dt=0.01, nu=0.1, noise=0.5, sinus IC, episodeLength=500,
 width=128, iex=3, lr=1e-4, gamma=0.95, mini-batch 256, 1 experience between
-policy updates) for both minibatch samplers (whole-episode TPU-native mode and
+policy updates) for both minibatch samplers (whole-episode mode and
 korali's 256-uniform-experience mode) over multiple seeds, and records:
 
   - the stochastic training return per generation,
@@ -20,7 +20,7 @@ the exact FD stencil) well inside the reference's 1e6-experience budget.  The
 committed artifact lives in results/learning_r2/.
 
 Usage:
-  env PYTHONPATH= python scripts/learning_study.py \
+  python scripts/learning_study.py \
       --ne 150000 --seeds 3 --out results/learning_r2
 """
 

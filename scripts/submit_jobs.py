@@ -3,9 +3,10 @@
 (jobs/sbatch-diffusion.sh:31-43): emits one sbatch file per (workload, run)
 pair, staging results under $SCRATCH when set, and submits unless --dry.
 
-TPU-pod variant: when --tpu-pod is given, emits a multi-host launcher that
-starts one process per host with jax.distributed auto-init env vars instead of
-the single-task CPU layout the reference uses.
+GPU multi-node variant: with --multi-node, every node gets --gpus-per-node
+GPUs and `srun` starts one process per node, which jax.distributed joins from
+the SLURM environment (parallel/mesh.initialize_distributed); pass
+--extra=--mesh to train over all of them.
 """
 
 import argparse
@@ -20,7 +21,7 @@ TEMPLATE = """#!/bin/bash -l
 #SBATCH --nodes={nodes}
 #SBATCH --ntasks-per-node=1
 #SBATCH --cpus-per-task={cpus}
-
+{gpus}
 export SCRATCH=${{SCRATCH:-$PWD}}
 RUNDIR=$SCRATCH/marlpde_tpu_runs/{name}
 mkdir -p $RUNDIR
@@ -37,16 +38,20 @@ def main():
     p.add_argument("--hours", type=int, default=24)
     p.add_argument("--nodes", type=int, default=1)
     p.add_argument("--cpus", type=int, default=12)
-    p.add_argument("--tpu-pod", action="store_true")
+    p.add_argument("--multi-node", action="store_true")
+    p.add_argument("--gpus-per-node", type=int, default=0)
     p.add_argument("--extra", type=str, default="")
     p.add_argument("--dry", action="store_true")
     args = p.parse_args()
 
-    launch = "srun" if args.tpu_pod else ""
+    launch = "srun" if args.multi_node else ""
+    gpus = (f"#SBATCH --gpus-per-node={args.gpus_per_node}\n"
+            if args.gpus_per_node else "")
     for run in args.runs:
         name = f"{args.workload}_{run}"
         script = TEMPLATE.format(name=name, hours=args.hours, nodes=args.nodes,
-                                 cpus=args.cpus, workload=args.workload,
+                                 cpus=args.cpus, gpus=gpus,
+                                 workload=args.workload,
                                  run=run, extra=args.extra, launch=launch)
         fname = f"sbatch_{name}.sh"
         with open(fname, "w") as f:

@@ -1,6 +1,6 @@
 """APG: analytic policy gradient through the differentiable rollout.
 
-The TPU-native upgrade of the reference's gradient-aware RL
+The on-device upgrade of the reference's gradient-aware RL
 (burger_jax_environment.py:50,94 s["State Gradient"] on the korali safe-rl
 branch): the return is differentiated through the full scan."""
 

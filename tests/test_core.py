@@ -221,8 +221,7 @@ class TestInterp:
 
 class TestUniformSplineFastPath:
     """periodic_spline_eval_uniform == periodic_spline_eval on the standard
-    shifted coarse grid (the burger-fd per-substep reward hot path; see
-    runs/tpu_fd_profile.log for the 124x rationale)."""
+    shifted coarse grid (the burger-fd per-substep reward hot path)."""
 
     def test_matches_general_path(self):
         rng = np.random.default_rng(7)

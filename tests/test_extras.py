@@ -182,7 +182,7 @@ class TestCliPresets:
 
     def test_burger_jax_env_is_differentiable(self):
         """The burger-jax preset's rollout is differentiable end-to-end —
-        the TPU-native upgrade of s["State Gradient"]
+        the on-device upgrade of s["State Gradient"]
         (burger_jax_environment.py:50)."""
         from marlpde_tpu.envs import registry
         env = registry.make_env("burger-jax", N_dns=64, grid_size=16,

@@ -121,8 +121,7 @@ class TestMultiProcessDryrun:
         out = subprocess.run(
             [sys.executable, os.path.join(repo, "scripts", "dist_dryrun.py"),
              "--out", str(tmp_path / "ckpt")],
-            capture_output=True, text=True, timeout=800,
-            env={**os.environ, "PYTHONPATH": ""})
+            capture_output=True, text=True, timeout=800)
         assert out.returncode == 0, out.stdout + out.stderr
         verdict = json.loads(out.stdout.strip().splitlines()[-1])
         assert verdict["ok"] and verdict["global_devices"] == 8

@@ -347,6 +347,25 @@ class TestFlatExperienceReplay:
         np.testing.assert_array_equal(np.asarray(rep.obs[0]), obs[2, 1])
         np.testing.assert_array_equal(np.asarray(rep.obs[2]), obs[0, 2])
 
+    def test_overfull_insert_keeps_newest_rows(self, rng):
+        """An insert larger than the ring writes only its newest E rows, so
+        every buffer of a slot holds the same experience (a scatter with
+        duplicate slots would leave the winner unspecified on the GPU)."""
+        from marlpde_tpu.rl import replay_flat
+        rep, batch, vtg, _ = self._mk(rng, E=4)   # 10 live into capacity 4
+        assert int(rep.cursor) == 10 and int(rep.live) == 4
+        obs = np.asarray(batch["obs"])
+        live = np.concatenate([obs[0, :5], obs[1, :2], obs[2, :3]])
+        for g in range(6, 10):                    # global ids 6..9 survive
+            np.testing.assert_array_equal(np.asarray(rep.obs[g % 4]), live[g])
+        # the episode bounds stored beside each row belong to that row
+        np.testing.assert_array_equal(np.asarray(rep.ep_last)[[6 % 4, 7 % 4]],
+                                      [6, 9])
+        vt = np.concatenate([np.asarray(vtg)[0, :5], np.asarray(vtg)[1, :2],
+                             np.asarray(vtg)[2, :3]])
+        np.testing.assert_array_equal(
+            np.asarray(rep.vtg)[[g % 4 for g in range(6, 10)]], vt[6:10])
+
     def test_flat_insert_retrace_matches_vtrace(self, rng):
         """Insert-time retrace values (rho=1) must equal the episode-mode
         _vtrace targets — the two computations share the same math."""
